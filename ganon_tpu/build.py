@@ -1,8 +1,8 @@
 """build / build-custom / update orchestration.
 
-Functional equivalent of ``/root/reference/src/ganon/build_update.py``:
+Functional equivalent of the reference's ``src/ganon/build_update.py``:
 parses input files/sequences, resolves taxonomy (NCBI/GTDB/custom, offline
-files supported), writes ``.tax`` + ``target_info.tsv``, runs the TPU
+files supported), writes ``.tax`` + ``target_info.tsv``, runs the device
 build engine, and supports resume states, restart and pickled-config
 updates. Network acquisition (genome_updater equivalent) accepts local
 assembly_summary files for offline operation.
@@ -677,13 +677,6 @@ def build_custom(cfg, which_call: str = "build_custom") -> bool:
                 max_fp=cfg.max_fp,
                 min_length=cfg.min_length,
                 threads=getattr(cfg, "threads", 1) or 1,
-                tpu_sizing=(
-                    getattr(cfg, "tpu_sizing", "auto") != "off"
-                    and (
-                        cfg.hash_functions == 0
-                        or getattr(cfg, "hash_functions_defaulted", False)
-                    )
-                ),
                 filter_format=getattr(cfg, "filter_format", "tpu"),
                 layout=getattr(cfg, "hibf_layout", "auto"),
                 quiet=cfg.quiet,
@@ -700,10 +693,6 @@ def build_custom(cfg, which_call: str = "build_custom") -> bool:
                 mode=cfg.mode,
                 min_length=cfg.min_length,
                 threads=getattr(cfg, "threads", 1) or 1,
-                tpu_sizing=getattr(cfg, "tpu_sizing", "auto") != "off",
-                hash_functions_defaulted=getattr(
-                    cfg, "hash_functions_defaulted", False
-                ),
                 quiet=cfg.quiet,
                 verbose=cfg.verbose,
                 filter_format=getattr(cfg, "filter_format", "tpu"),

@@ -1,8 +1,8 @@
 """Classification pipeline: hierarchy orchestration, thresholds, outputs.
 
 Re-implements the full semantics of the reference classify engine
-(``/root/reference/src/ganon-classify/GanonClassify.cpp``) on top of the
-TPU compute path:
+(``src/ganon-classify/GanonClassify.cpp``) on top of the device compute
+path:
 
 * multi-level hierarchies with leftover-read requeue (queue-swap semantics
   become an in-memory survivor list between levels),
@@ -69,13 +69,10 @@ class ClassifyConfig:
     output_single: bool = False
     skip_lca: bool = False
     tax_root_node: str = "1"
-    # device batch size; 0 = auto by table regime (16384 when the
-    # filter is VMEM-staged — amortizes the per-dispatch staging copy —
-    # else 8192)
-    n_reads: int = 0
+    # device batch size (reads per dispatch)
+    n_reads: int = 8192
     # in-flight fast-path batches before fetching the oldest result;
-    # >1 hides the device round-trip (and, with async host copies,
-    # divides per-call latency on remote devices by the depth)
+    # >1 hides the device round-trip behind host work
     pipeline_depth: int = 4
     # regroup read batches by length bucket before padding (mixed-length
     # inputs; io.pipeline.bucketed_batches). Off = original streaming.
@@ -83,14 +80,14 @@ class ClassifyConfig:
     hashes_limit: int = 65535  # uint16 counter limit; raise for long reads
     # pruned-forest fast path: static surviving-group slots per read
     # (reads with more coarse-surviving groups fall back to the exact
-    # probe-all gated path; classify_batch_packed_pruned). 2 measured
-    # 39% faster than 4 at T=8192 (every masked slot still gathers);
-    # at the default rel-cutoff (0.75) multi-group survivors are rare
+    # probe-all gated path; classify_batch_packed_pruned). Every slot
+    # gathers, masked or not, and at the default rel-cutoff (0.75)
+    # multi-group survivors are rare
     pruned_max_groups: int = 2
     # (read, slot) pair compaction for the pruned fine stage: the fine
     # gather sizes to ~frac x B pairs instead of B x S slots (surviving
     # groups average well under 1 at default cutoffs, so masked slots
-    # are ~half the probes; P=B measured +14% kernel at T=8192). A
+    # are ~half the probes). A
     # batch whose pairs spill past the cap is retried once with dense
     # slots (exact), and the level's cap self-tunes upward so spilling
     # workloads converge to dense instead of double-dispatching.
@@ -487,12 +484,6 @@ class _Out:
 
 def run_classify(cfg: ClassifyConfig) -> dict:
     """Run the full classification; returns collected stats (for tests)."""
-    # the fused classify program costs minutes of XLA compile per shape
-    # on TPU (measured 478 s cold); the persistent cache makes that a
-    # once-ever cost instead of once-per-session
-    from ganon_tpu.index.device_build import enable_compile_cache
-
-    enable_compile_cache()
     t_start = _time.monotonic()
     cfg.validate()
     levels = parse_hierarchy(cfg)
@@ -573,20 +564,9 @@ def run_classify(cfg: ClassifyConfig) -> dict:
         runners.append(r)
 
     def ensure_ctx(r: _Runner) -> LevelContext:
-        nonlocal n_reads
         if r.ctx is not None:
             return r.ctx
         r.ctx = LevelContext(r.level, cfg, mesh)
-        if r.first and not n_reads:
-            # auto batch size by table regime: the VMEM-staged (u8)
-            # table pays one HBM->VMEM staging copy per dispatch
-            # (1.8 ms at 87 MB, round-4 trace), so bigger batches
-            # amortize it (+7% kernel at 16384); the HBM/u32 regime is
-            # gather-bound and indifferent (measured slightly worse).
-            staged = all(
-                getattr(f, "vmem_staged", False) for f in r.ctx.filters
-            )
-            n_reads = 16384 if staged else 8192
         file_mode = "w" if (r.first or not cfg.output_single) else "a"
         r.one_files = {
             p: cfg.output_prefix + p + "." + r.level.output_file_one
@@ -635,8 +615,7 @@ def run_classify(cfg: ClassifyConfig) -> dict:
     # N-deep pipeline: keep several batches in flight before fetching
     # the oldest result. Each dispatch also starts the device->host
     # copy asynchronously, so result transfers overlap device compute
-    # and each other — at high per-call latency (remote/tunneled
-    # device) depth d divides the latency term by d.
+    # and each other.
     depth = max(1, cfg.pipeline_depth)
     pending: deque = deque()  # (runner, batch, disp) in dispatch order
 
@@ -840,7 +819,7 @@ def _dispatch_batch_fast(batch: EncodedBatch, ctx: LevelContext,
         import jax.numpy as jnp
 
         packed = dev.classify_batch_packed_raptor(
-            tuple(s["tbl8"] for s in f.subs),
+            tuple(s["tbl"] for s in f.subs),
             tuple(s["byte_starts"] for s in f.subs),
             tuple(s["byte_ends"] for s in f.subs),
             tuple(jnp.asarray(s["cols"]) for s in f.subs),
@@ -858,7 +837,7 @@ def _dispatch_batch_fast(batch: EncodedBatch, ctx: LevelContext,
         import jax.numpy as jnp
 
         packed = dev.classify_batch_packed_forest(
-            tuple(s.tbl8 for s in f.subs),
+            tuple(s.tbl for s in f.subs),
             tuple(s.byte_starts for s in f.subs),
             tuple(s.byte_ends for s in f.subs),
             f.put_batch(inbuf),
@@ -873,7 +852,7 @@ def _dispatch_batch_fast(batch: EncodedBatch, ctx: LevelContext,
         )
     else:
         packed = dev.classify_batch_packed(
-            f.tbl8, f.byte_starts, f.byte_ends, f.put_batch(inbuf),
+            f.tbl, f.byte_starts, f.byte_ends, f.put_batch(inbuf),
             ctx.specs[0].rel_cutoff, ctx.level.rel_filter, cfg.hashes_limit,
             k=ctx.kmer_size, w=w, L1=L1, L2=L2,
             bin_size=f.ibf_config.bin_size_bits,
@@ -927,7 +906,7 @@ def _dispatch_batch_fast_multi(batch: EncodedBatch, ctx: LevelContext,
         if cap >= batch_pad * K:
             cap = 0
     packed = dev.classify_batch_packed_multi(
-        tuple(f.tbl8 for f in ctx.filters),
+        tuple(f.tbl for f in ctx.filters),
         tuple(f.byte_starts for f in ctx.filters),
         tuple(f.byte_ends for f in ctx.filters),
         tuple(jnp.asarray(c, dtype=jnp.int32) for c in ctx.filter_cols),
@@ -1106,8 +1085,8 @@ def _classify_batch(
         if not bool(np.asarray(overflow).any()):
             hashes, mask = hc, mk
     # bound the uncompacted gather working set: overflowing long reads
-    # would otherwise materialize [B, M, W] gather temps beyond HBM
-    # (measured 4 x 4.9 GB at [512 reads, 9970 positions, 1 KB rows])
+    # would otherwise materialize [B, M, W] gather temporaries of
+    # several GB each (4.9 GB at [512 reads, 9970 positions, 1 KB rows])
     Bp, M = hashes.shape
     step = Bp
     if M > 2048:

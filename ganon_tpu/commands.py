@@ -21,8 +21,7 @@ def classify(cfg) -> bool:
     processes (``--distributed`` or JAX_COORDINATOR_ADDRESS), read
     files are partitioned per host and each host writes under
     ``{output_prefix}.h{process_index}`` (parallel/multihost.py) —
-    the TPU-native shape of the reference's --batch-reads file-level
-    parallelism.
+    the shape of the reference's --batch-reads file-level parallelism.
     """
     from ganon_tpu.classify.engine import ClassifyConfig, run_classify
     from ganon_tpu.parallel import multihost

@@ -92,7 +92,7 @@ class Config:
     def build_parser(cls):
         parser = argparse.ArgumentParser(
             prog="ganon-tpu",
-            description="ganon-tpu: TPU-native metagenomics classification",
+            description="ganon-tpu: accelerator-native metagenomics classification",
         )
         parser.add_argument(
             "-v", "--version", action="version",
@@ -109,16 +109,16 @@ class Config:
             # Deliberate default divergence from the reference (which
             # defaults hibf, config.py:179): the HIBF's hierarchical
             # descent exists to skip sub-filters and save CPU memory
-            # bandwidth; on TPU the whole table is HBM-resident and the
-            # flat IBF queries in ONE fused branch-free dispatch, while
-            # the forest needs one gather round per sub-filter. With
-            # TPU-tuned sizing the memory gap also narrows. Use hibf for
-            # reference-binary interop or very skewed target sizes.
+            # bandwidth; on the accelerator the whole table is
+            # device-resident and the flat IBF queries in ONE fused
+            # branch-free dispatch, while the forest needs one gather
+            # round per sub-filter. Use hibf for reference-binary interop
+            # or very skewed target sizes.
             g.add_argument("-x", "--filter-type", type=str, default="ibf",
                            choices=cls.choices_filter_type,
-                           help="Filter type. Default ibf: on TPU the flat "
-                                "interleaved filter classifies in one fused "
-                                "dispatch and is the fastest path (the "
+                           help="Filter type. Default ibf: on the "
+                                "accelerator the flat interleaved filter "
+                                "classifies in one fused dispatch (the "
                                 "reference defaults hibf, whose hierarchical "
                                 "descent only pays on CPUs)")
             adv = p.add_argument_group("advanced arguments")
@@ -141,20 +141,14 @@ class Config:
                              default=31, help="window (minimizer) size")
             adv.add_argument("-s", "--hash-functions", type=unsigned_int(0),
                              default=None, choices=range(6),
-                             help="hash functions (0=auto; default 4, but "
-                                  "--tpu-sizing may lower it for large "
-                                  "filters when not set explicitly)")
-            adv.add_argument("--tpu-sizing", type=str, default="auto",
-                             choices=["auto", "off"],
-                             help="throughput-aware hash-function tuning "
-                                  "for HBM-resident filters (ours-only)")
+                             help="hash functions (0=auto; default 4)")
             adv.add_argument("--hibf-layout", type=str, default="auto",
                              choices=["auto", "forest", "pruned"],
                              help="hierarchical layout for --filter-type "
                                   "hibf (ours-only): forest = size-"
                                   "stratified classes, pruned = merged-"
                                   "bin coarse gate + grouped fine table "
-                                  "(the TPU form of the reference HIBF's "
+                                  "(a flat form of the reference HIBF's "
                                   "threshold-gated descent); auto picks "
                                   "pruned at many-targets scale")
             adv.add_argument("-j", "--mode", type=str, default="avg",
@@ -320,12 +314,12 @@ class Config:
         cl.add_argument("--output-single", action="store_true", default=False)
         cl.add_argument("--tax-root-node", type=str, default="1")
         cl.add_argument("-t", "--threads", type=unsigned_int(1), default=1)
-        # 0 = auto by table regime (engine.ClassifyConfig.n_reads)
-        cl.add_argument("--n-reads", type=unsigned_int(0), default=0,
+        # reads per device batch (engine.ClassifyConfig.n_reads)
+        cl.add_argument("--n-reads", type=unsigned_int(1), default=8192,
                         help=argparse.SUPPRESS)
         cl.add_argument("--n-batches", type=unsigned_int(1), default=1000,
                         help=argparse.SUPPRESS)
-        # TPU pipeline tuning (hidden, like the reference's n-reads tier)
+        # pipeline tuning (hidden, like the reference's n-reads tier)
         cl.add_argument("--pipeline-depth", type=unsigned_int(1), default=4,
                         help=argparse.SUPPRESS)
         cl.add_argument("--top-k-matches", type=unsigned_int(1), default=128,
@@ -442,7 +436,7 @@ class Config:
                 self.max_fp = 0.001 if self.filter_type == "hibf" else 0.05
             if getattr(self, "hash_functions", None) is None:
                 # reference default 4; record that it was defaulted so
-                # --tpu-sizing auto may re-tune it for HBM-regime filters
+                # an update keeps the saved build's value
                 self.hash_functions = 4
                 self.hash_functions_defaulted = True
             else:

@@ -61,8 +61,6 @@ class BuildConfig:
     mode: str = "avg"
     min_length: int = 0
     threads: int = 1
-    tpu_sizing: bool = True  # throughput-aware auto hash-function tuning
-    hash_functions_defaulted: bool = False  # h=4 came from the CLI default
     quiet: bool = True
     verbose: bool = False
     # tpu (npz) | tpu-raw (mmap-able, instant load for huge dbs)
@@ -493,11 +491,6 @@ def count_target_hashes(
     return out
 
 
-def _h_tunable(cfg: BuildConfig) -> bool:
-    """Hash-function count is free to tune: auto (0) or the CLI default."""
-    return cfg.hash_functions == 0 or cfg.hash_functions_defaulted
-
-
 def _use_device_pipeline() -> bool:
     """The device-resident pipeline exists to avoid host<->device
     transfers; on the CPU backend those are memcpys and the host-array
@@ -559,7 +552,6 @@ def run_build(cfg: BuildConfig) -> IBF:
             filter_size=cfg.filter_size,
             hash_functions=cfg.hash_functions,
             mode=cfg.mode,
-            tpu_sizing=cfg.tpu_sizing and _h_tunable(cfg),
         )
         _mark("EstimateParams/BuildIBF")
         return _finish_build(cfg, ibf, stats, phases, _mark)
@@ -589,7 +581,6 @@ def run_build(cfg: BuildConfig) -> IBF:
             filter_size=cfg.filter_size,
             hash_functions=cfg.hash_functions,
             mode=cfg.mode,
-            tpu_sizing=cfg.tpu_sizing and _h_tunable(cfg),
         )
         _mark("EstimateParams")
         splits = sizing.split_target_bins(icfg, hashes_count)

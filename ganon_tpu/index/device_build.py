@@ -59,8 +59,10 @@ CLOSE_ROWS = 128
 DEVICE_CACHE_BYTES = 4 << 30
 # peak bytes for the scatter's u8 bit plane; larger filters scatter in
 # row-range chunks (the plane is 8x the bit-matrix, so a multi-GB filter
-# would otherwise exhaust HBM). Each extra chunk re-walks every entry,
-# so the budget is set as large as HBM comfortably allows.
+# would otherwise exhaust device memory). Each extra chunk re-walks every
+# entry. 3 GiB keeps a filter of up to 384 MiB (the RefSeq archaea
+# complete-genomes shape) in one pass while the plane stays a small part
+# of the ~60 GB that JAX reserves on an 80 GB card.
 PLANE_CHUNK_BYTES = 3 << 30
 
 CHUNK = 1 << 18
@@ -91,38 +93,13 @@ def _row_bucket(n: int) -> int:
 # jitted kernels
 
 
-def enable_compile_cache() -> None:
-    """Persistent XLA compilation cache: the build kernels cost tens of
-    seconds of compile per shape on TPU (even with columnsort, see
-    ops/bigsort.py); caching makes that a once-ever cost per shape."""
-    import jax
-
-    d = os.environ.get(
-        "GANON_TPU_XLA_CACHE",
-        os.path.join(os.path.expanduser("~"), ".cache", "ganon_tpu_xla"),
-    )
-    if not d or d == "0":
-        return
-    try:
-        os.makedirs(d, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", d)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
-    except Exception:
-        pass
-
-
 def _make_kernels():
     import jax
     import jax.numpy as jnp
 
     from ganon_tpu.classify.device import unpack_codes_2bit
-    from ganon_tpu.ops.bigsort import sort_flat
     from ganon_tpu.ops.ibf_query import ibf_row_indices
     from ganon_tpu.ops.minimizers import window_mins_unique_jax
-
-    enable_compile_cache()
-
-    U32MAX = 0xFFFFFFFF
 
     @partial(jax.jit, static_argnames=("k", "w", "L", "cap"))
     def extract(packed, lengths, *, k, w, L, cap):
@@ -147,13 +124,7 @@ def _make_kernels():
         keyf = jnp.where(valid, keys[:, None], jnp.int32(R)).reshape(-1)
         hi = (vals >> jnp.uint64(32)).astype(jnp.uint32).reshape(-1)
         lo = vals.astype(jnp.uint32).reshape(-1)
-        # columnsort: a rank-1 lax.sort at these sizes costs minutes of
-        # XLA compile time (ops/bigsort.py)
-        k_s, hi_s, lo_s = sort_flat(
-            (keyf, hi, lo), 3,
-            lo_pad=(-1, 0, 0),
-            hi_pad=(np.iinfo(np.int32).max, U32MAX, U32MAX),
-        )
+        k_s, hi_s, lo_s = jax.lax.sort((keyf, hi, lo), num_keys=3)
         first = jnp.concatenate(
             [
                 jnp.ones((1,), dtype=bool),
@@ -202,19 +173,17 @@ def _make_kernels():
 
         The bit accumulation scatter-maxes ones into a LANE-MAJOR u8 bit
         plane ``[32, rows*n_words]`` (idempotent, so no dedup sort is
-        needed): keeping the word axis minor avoids the catastrophic
-        tile padding a ``[..,4,8]``-shaped pack pays on TPU (minor dims
-        <128 lanes pad 16-32x), and the 32-lane weighted sum that packs
-        the planes back into u32 words fuses into one reduction. Large
+        needed): keeping the word axis minor keeps every plane row
+        contiguous, and the OR-chain that packs the planes back into u32
+        words fuses elementwise. Large
         filters process the plane in ``n_chunks`` row-range passes
         (static) so peak memory stays ~plane_bytes/n_chunks regardless
         of filter size; out-of-range entries drop via the scatter
         sentinel (negative = earlier chunk entries are clamped onto it,
         since JAX wraps negative indices even in drop mode).
 
-        ``bits`` is FLAT u32 [bin_size * n_words] on device: a 2-D
-        [bin_size, n_words] form with a small n_words pads its minor dim
-        up to the 128-lane tile (observed 64x HBM blowup at n_words=2).
+        ``bits`` is FLAT u32 [bin_size * n_words] on device, so row-range
+        chunks are contiguous slices.
         """
         flat, lane = _entry_coords(
             k_s, hi_s, lo_s, uniq, skip_key, params,
@@ -317,10 +286,7 @@ def _make_kernels():
         """
         from jax.sharding import PartitionSpec as P
 
-        try:
-            from jax import shard_map
-        except ImportError:  # older jax
-            from jax.experimental.shard_map import shard_map
+        from jax import shard_map
 
         nb = mesh.shape["bins"]
 
@@ -677,7 +643,7 @@ class DeviceBuildPipeline:
             k_s, hi_s, lo_s, uniq = close_sort(vals, n, keys_d, ovf)
             counts, kovf = close_counts_sorted(k_s, keys_d, ovf, uniq)
             # cache the sorted entries for the scatter pass (saves the
-            # second columnsort + any re-extraction); the trimmer may
+            # second sort + any re-extraction); the trimmer may
             # drop them under memory pressure
             group.sorted = (k_s, hi_s, lo_s, uniq)
             group.sorted_bytes = int(k_s.shape[0]) * 13

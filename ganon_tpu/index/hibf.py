@@ -3,7 +3,8 @@
 The reference delegates HIBF construction to raptor (DP layout + recursive
 merged-bin IBFs, build_update.py:411-518) and queries it by per-read
 recursive descent (hierarchical_interleaved_bloom_filter.hpp:417-532).
-That pointer-chasing design is hostile to TPUs; the equivalent benefit —
+That pointer-chasing design is hostile to batched accelerators; the
+equivalent benefit —
 small targets don't pay the bin size of the largest target — is achieved
 here with a *forest* of IBFs: targets are partitioned into size classes by
 minimizer count, each class builds its own optimally-sized IBF (reusing
@@ -220,8 +221,8 @@ class RaptorHIBF:
     negatives), so a parent's count is always >= any descendant's — the
     gating never removes a user bin whose own count passes the threshold.
     A branch-free equivalent therefore queries EVERY sub-IBF and lets the
-    engine's rel-cutoff do the thresholding, which is exactly what the
-    TPU wants: uniform batched work instead of pointer chasing.
+    engine's rel-cutoff do the thresholding: uniform batched work
+    instead of pointer chasing.
     """
 
     def __init__(self, parsed: dict):
@@ -303,7 +304,6 @@ def build_hibf(
     max_fp: float = 0.001,
     hash_functions: int = 0,
     num_classes: int = 4,
-    tpu_sizing: bool | None = None,
 ) -> HIBF:
     """Partition targets into size classes and build one IBF per class.
 
@@ -332,7 +332,6 @@ def build_hibf(
                 window_size=window_size,
                 max_fp=max_fp,
                 hash_functions=hash_functions,
-                tpu_sizing=tpu_sizing,
             )
         )
     return HIBF(subs, kmer_size, window_size, max_fp)
@@ -402,16 +401,16 @@ def export_raptor_hibf(
 
 # target count at/above which ``--hibf-layout auto`` picks the pruned
 # merged-bin layout: below it the whole query table is cheap to probe
-# at full width (VMEM/u32-staged regimes) and the forest's per-class
-# sizing already bounds space waste; at many-targets scale the coarse
-# gate is what keeps probed bytes off the HBM roofline
+# at full width and the forest's per-class sizing already bounds space
+# waste; at many-targets scale the coarse gate is what keeps the probed
+# bytes per read small
 PRUNED_AUTO_MIN_TARGETS = 2048
 
 
 def run_build_hibf(
     *, target_info_file: str, output_file: str, kmer_size: int,
     window_size: int, hash_functions: int = 0, max_fp: float = 0.001,
-    min_length: int = 0, threads: int = 1, tpu_sizing: bool | None = None,
+    min_length: int = 0, threads: int = 1,
     filter_format: str = "tpu", layout: str = "auto", quiet: bool = True,
 ):
     """Count hashes from a target_info file and build/save a hierarchical
@@ -459,7 +458,6 @@ def run_build_hibf(
     hibf = build_hibf(
         target_hashes, kmer_size=kmer_size, window_size=window_size,
         max_fp=max_fp, hash_functions=hash_functions,
-        tpu_sizing=tpu_sizing,
     )
     if filter_format == "reference":
         export_raptor_hibf(hibf, target_hashes, output_file)

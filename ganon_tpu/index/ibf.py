@@ -1,7 +1,7 @@
 """IBF container: host build (vectorized scatter), save/load, device query.
 
 File format (``.ibf``): a NumPy ``.npz`` with a JSON header — our own
-TPU-native format, functionally equivalent to the reference's cereal
+format (``--filter-format tpu``), functionally equivalent to the reference's cereal
 archive contents (version, IBFConfig, hashes_count, bin_map, bit data;
 reference layout: GanonBuild.cpp:251-288).
 """
@@ -243,17 +243,9 @@ def _scatter_chunk_jit():
         # pad entries -> sentinel that sorts last and is masked out
         sentinel = jnp.uint64(bin_size) * technical
         bidx = jnp.where(valid[:, None], bidx, sentinel).reshape(-1)
-        # columnsort (ops/bigsort.py): a rank-1 lax.sort at multi-million
-        # sizes costs minutes of XLA compile time; +1 bias frees the
-        # all-zeros tuple for the strict lo_pad
-        from ganon_tpu.ops.bigsort import sort_flat
-
-        b1 = bidx + jnp.uint64(1)
-        hi = (b1 >> jnp.uint64(32)).astype(jnp.uint32)
-        lo = b1.astype(jnp.uint32)
-        hi_s, lo_s = sort_flat(
-            (hi, lo), 2, lo_pad=(0, 0), hi_pad=(0xFFFFFFFF, 0xFFFFFFFF)
-        )
+        hi = (bidx >> jnp.uint64(32)).astype(jnp.uint32)
+        lo = bidx.astype(jnp.uint32)
+        hi_s, lo_s = jax.lax.sort((hi, lo), num_keys=2)
         first = jnp.concatenate(
             [
                 jnp.ones((1,), dtype=bool),
@@ -263,7 +255,7 @@ def _scatter_chunk_jit():
         sbidx = (
             (hi_s.astype(jnp.uint64) << jnp.uint64(32))
             | lo_s.astype(jnp.uint64)
-        ) - jnp.uint64(1)
+        )
         uniq = first & (sbidx < sentinel)
         # word index unconditionally from the sorted bit index: keeps the
         # index vector truly sorted (required by indices_are_sorted=True).
@@ -340,7 +332,6 @@ def build_ibf(
     filter_size: float = 0.0,
     hash_functions: int = 0,
     mode: str = "avg",
-    tpu_sizing: bool | None = None,
 ) -> IBF:
     """Build an IBF from per-target minimizer arrays (sorted, deduplicated).
 
@@ -357,7 +348,6 @@ def build_ibf(
         filter_size=filter_size,
         hash_functions=hash_functions,
         mode=mode,
-        tpu_sizing=tpu_sizing,
     )
 
     splits = sizing.split_target_bins(cfg, hashes_count)

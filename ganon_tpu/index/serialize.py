@@ -387,7 +387,7 @@ def write_raptor_hibf(
 
     ``ibfs`` is a list of ``(bits uint32[bin_size, tb/32], bins,
     hash_funs)``.
-    Enables exporting TPU-built hierarchical filters for the reference
+    Enables exporting hierarchical filters built here for the reference
     binaries, and round-trips the reader in tests.
     """
     out = bytearray()

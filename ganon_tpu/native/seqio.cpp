@@ -3,7 +3,7 @@
 // Host-side hot path of the classify pipeline (the reference runs its
 // parser in a dedicated C++ thread, GanonClassify.cpp:1220-1287; here the
 // parser also 2-bit-encodes straight into the pinned numpy batch buffer
-// that feeds the TPU). Exposed through a C ABI consumed via ctypes.
+// that feeds the device). Exposed through a C ABI consumed via ctypes.
 //
 // Encoding: A=0 C=1 G=2 T=3, U->T, everything else -> A (dna4 semantics,
 // see ganon_tpu/ops/minimizers.py).

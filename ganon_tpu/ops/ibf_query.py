@@ -3,8 +3,8 @@
 The IBF is a dense bit-matrix ``[bin_size_bits rows x technical_bins cols]``
 held as ``uint32[bin_size, n_words]`` (bin ``b`` lives in word ``b // 32``,
 bit ``b % 32``; ``technical_bins = 32 * n_words`` is the 64-padded bin
-count). This maps directly onto HBM and lets a read's whole hash set query
-every bin with gathers + bitwise AND + bit-plane accumulation.
+count). This maps directly onto device memory and lets a read's whole hash
+set query every bin with gathers + bitwise AND + bit-plane accumulation.
 
 Hash family (seqan3-style multiply/xor-shift/multiply + fastrange; build and
 query must agree — membership semantics only depend on this file):
@@ -136,7 +136,7 @@ def bulk_count_bins(bits, rows, hash_mask):
 
 @partial(jax.jit, static_argnames=("num_targets",))
 def target_counts(bin_counts, bin_to_target, *, num_targets: int):
-    """Sum technical-bin counts into per-target counts (MXU matmul).
+    """Sum technical-bin counts into per-target counts (one-hot matmul).
 
     Args:
       bin_counts: int32 ``[B, technical_bins]``.
@@ -144,10 +144,9 @@ def target_counts(bin_counts, bin_to_target, *, num_targets: int):
         (``num_targets`` for padding bins).
       num_targets: static target count T.
 
-    Returns int32 ``[B, T]``. Exact: counts are < 2^24, and the dot runs at
-    ``Precision.HIGHEST`` — on TPU the default single-pass bf16 MXU matmul
-    is only exact for integers <= 256, which per-byte counts exceed on the
-    long-read path.
+    Returns int32 ``[B, T]``. Exact: counts are < 2^24 and the dot runs
+    at ``Precision.HIGHEST`` (full f32; a TF32 or bf16 pass would round
+    counts above 2^11 or 2^8).
     """
     onehot = jax.nn.one_hot(bin_to_target, num_targets + 1, dtype=jnp.float32)
     out = jnp.dot(
@@ -161,15 +160,13 @@ def target_counts(bin_counts, bin_to_target, *, num_targets: int):
 
 def pack_table_u8(bits: np.ndarray, bin_to_target: np.ndarray,
                   num_targets: int, row_chunk: int = 4096):
-    """Repack the interleaved bit-matrix into the TPU query layout.
+    """Repack the interleaved bit-matrix into the byte-aligned query layout.
 
-    Device layout: ``uint8[bin_size, W8]`` with every target's technical
-    bins moved to a byte-aligned contiguous range (padding bins are zero).
+    Layout: ``uint8[bin_size, W8]`` with every target's technical bins
+    moved to a byte-aligned contiguous range (padding bins are zero).
     Byte alignment lets the query path count hits with byte popcounts +
-    one prefix sum instead of expanding 32 bit-planes per word, and u8
-    row fetches run ~1.7x faster than u32 through XLA's TPU gather while
-    the table is VMEM-staged (the HBM regime inverts this — see
-    table_as_u32).
+    one segment sum instead of expanding 32 bit-planes per word. The
+    device holds it as the :func:`table_as_u32` word view.
     Returns ``(tbl8, byte_starts, byte_ends)`` with int32 [T] byte ranges.
 
     The on-disk format keeps the compact interleaved u32 layout
@@ -178,7 +175,6 @@ def pack_table_u8(bits: np.ndarray, bin_to_target: np.ndarray,
     """
     b2t = np.asarray(bin_to_target)
     R = bits.shape[0]
-    TB = len(b2t)
     order = np.argsort(b2t, kind="stable")
     sorted_t = b2t[order]
     starts = np.searchsorted(sorted_t, np.arange(num_targets), side="left")
@@ -209,62 +205,19 @@ def pack_table_u8(bits: np.ndarray, bin_to_target: np.ndarray,
     return tbl8, byte_starts, byte_ends
 
 
-def _popcount_u8(x):
-    x = x - ((x >> 1) & jnp.uint8(0x55))
-    x = (x & jnp.uint8(0x33)) + ((x >> 2) & jnp.uint8(0x33))
-    return (x + (x >> 4)) & jnp.uint8(0x0F)
-
-
 def table_as_u32(tbl8: np.ndarray) -> np.ndarray:
     """View the u8 query table as little-endian u32 words (pads W8 to x4).
 
-    Same bytes, same target byte ranges — only the gather element type
-    changes. XLA's TPU row gather is per-transaction bound in the HBM
-    regime and u32 elements fetch the same row in ~1/4 the scattered
-    tile segments: measured 2.0-2.5x faster at 1-4k targets
-    (scripts/wide_layout_probe.py) while u8 stays ~1.7x faster when the
-    table is VMEM-staged. DeviceFilter picks per table size.
+    Same bytes, same target byte ranges; the gather fetches a row in a
+    quarter of the elements. This is the one device layout: on an H100
+    the u32 gather beat the u8 gather at every table size measured,
+    27 MB to 2.1 GB (PERF.md, "Findings").
     """
     R, W8 = tbl8.shape
     W8p = -(-W8 // 4) * 4
     if W8p != W8:
         tbl8 = np.pad(tbl8, ((0, 0), (0, W8p - W8)))
     return np.ascontiguousarray(tbl8).view(np.uint32)
-
-
-def commit_device_table(tbl8: np.ndarray, u32_threshold_bytes=None):
-    """THE single-device production table layout (DeviceFilter policy):
-    u32 word view past the u8 VMEM staging budget, committed ROW-major
-    on device. jax's ``Layout`` takes MAJOR-to-minor order, so
-    row-major for [rows, width] is ``Layout((0, 1))`` (dim 1 minor =
-    width contiguous; prints as minor_to_major {1,0} in HLO). jit
-    adopts a committed argument's layout as the entry layout, so
-    committing the wrong order re-paid a 0.86 ms in-program relayout
-    copy every batch at [274617, 256] u32 (round-3 trace) — the gather
-    wants rows contiguous. Benches and probes must call this instead
-    of re-deriving the policy, or they drift from what the engine
-    actually runs."""
-    import jax
-    import jax.numpy as jnp
-
-    if u32_threshold_bytes is None:
-        from ganon_tpu.index.sizing import VMEM_STAGED_TABLE_BYTES
-
-        u32_threshold_bytes = VMEM_STAGED_TABLE_BYTES
-    if tbl8.nbytes > u32_threshold_bytes:
-        tbl8 = table_as_u32(tbl8)
-    try:
-        from jax.experimental.layout import Format, Layout
-
-        return jax.device_put(
-            tbl8,
-            Format(
-                Layout((0, 1)),
-                jax.sharding.SingleDeviceSharding(jax.devices()[0]),
-            ),
-        )
-    except Exception:
-        return jnp.asarray(tbl8)
 
 
 def _popcount_u32_bytelanes(x):
@@ -275,31 +228,26 @@ def _popcount_u32_bytelanes(x):
 
 
 @jax.jit
-def bulk_target_counts_u32(tbl32, rows, hash_mask, byte_starts, byte_ends):
-    """Per-target counts gathering the byte-aligned table as u32 words.
+def bulk_target_counts_packed(tbl32, rows, hash_mask, byte_starts,
+                              byte_ends):
+    """Per-target counts on the byte-aligned table's u32 word view.
 
-    Semantically identical to :func:`bulk_target_counts_u8` on
-    ``table_as_u32(tbl8)``: the AND runs on u32 words, per-byte
-    popcounts stay in their byte lanes (sum over hashes <= 48*8 needs
-    the post-gather expansion to int32 to avoid lane overflow, same
-    cost as the u8 path's expansion), and the little-endian byte
-    unpack restores byte order so ``byte_starts``/``byte_ends`` apply
-    unchanged. Used in the HBM regime where the u32 gather is 2-2.5x
-    faster (see table_as_u32).
+    ``counts[b, t] = sum_m popcount(AND_s tbl8[rows[b,m,s],
+    byte_starts[t]:byte_ends[t]])`` with ``tbl32 = table_as_u32(tbl8)``:
+    the AND runs on u32 words, per-byte popcounts stay in their byte
+    lanes, and the little-endian byte unpack restores byte order so
+    ``byte_starts``/``byte_ends`` apply unchanged. One gather per hash
+    function, ANDed pairwise.
     """
     member = tbl32[rows[:, :, 0]]  # [B, M, W]
     for s in range(1, rows.shape[2]):
         member = member & tbl32[rows[:, :, s]]
     member = jnp.where(hash_mask[:, :, None], member, jnp.uint32(0))
     pc = _popcount_u32_bytelanes(member)  # [B, M, W] 4 lanes/word
-    # lane-safe grouped accumulation: per-byte popcounts (each <=8) sum
-    # to G*8 <= 128 without carrying across byte lanes, so groups reduce
-    # in u32 before the 4x int32 lane expansion — 16x less data through
-    # the expand+sum (measured ~10 ms of VPU time at [8192,48,1024]).
-    # G=16 over the lane-max 31: compact widths are multiples of 8 so
-    # the power-of-two group usually needs no pad and the whole
-    # pad+relayout+reduce stage fuses — 9.55 -> 6.66 ms/batch at
-    # [8192,48,256] u32 (scripts/pcreduce_probe.py)
+    # lane-safe grouped accumulation: per-byte popcounts (each <= 8) sum
+    # to G*8 = 128 without carrying across byte lanes, so groups of G
+    # hashes reduce in u32 before the 4x int32 lane expansion (G-fold
+    # less data through the expand + sum)
     B, M, W = pc.shape
     G = 16
     Mp = -(-M // G) * G
@@ -317,61 +265,21 @@ def bulk_target_counts_u32(tbl32, rows, hash_mask, byte_starts, byte_ends):
                            max_val=8 * rows.shape[1])
 
 
-@jax.jit
-def bulk_target_counts_u8(tbl8, rows, hash_mask, byte_starts, byte_ends):
-    """Per-target counts on the byte-aligned u8 layout (pack_table_u8).
-
-    ``counts[b, t] = sum_m popcount(AND_s tbl8[rows[b,m,s],
-    byte_starts[t]:byte_ends[t]])`` — gather + AND + byte popcount + one
-    prefix sum over the byte axis. No 32x bit-plane expansion.
-
-    One gather per hash function (ANDed pairwise) instead of a joint
-    [B, M, S] gather: in the fused classify program the joint form costs
-    an extra layout copy of the 4x larger gathered array (~1 ms/batch,
-    measured on v5e — see docs/perf_notes.md).
-    """
-    member = tbl8[rows[:, :, 0]]  # [B, M, W8]
-    for s in range(1, rows.shape[2]):
-        member = member & tbl8[rows[:, :, s]]
-    member = jnp.where(hash_mask[:, :, None], member, jnp.uint8(0))
-    pc = _popcount_u8(member)  # [B, M, W8] values <= 8
-    # grouped accumulation: G*8 <= 128 popcount sum fits u8, so groups
-    # reduce at native width before widening to int32 (16x less data
-    # through the widen+sum; see the u32 twin below). G=16 over the
-    # lane-max 31: power-of-two groups divide the compact widths
-    # (multiples of 8) so the pad vanishes and the reduce stage fuses
-    # (scripts/pcreduce_probe.py)
-    B, M, W8 = pc.shape
-    G = 16
-    Mp = -(-M // G) * G
-    if Mp != M:
-        pc = jnp.pad(pc, ((0, 0), (0, Mp - M), (0, 0)))
-    grp = jnp.sum(pc.reshape(B, Mp // G, G, W8), axis=2, dtype=jnp.uint8)
-    cw = jnp.sum(grp.astype(jnp.int32), axis=1)  # [B, W8]
-    return _segment_matmul(cw, byte_starts, byte_ends,
-                           max_val=8 * rows.shape[1])
-
-
 def _segment_matmul(cw, byte_starts, byte_ends, max_val: int = 65535 * 8):
-    """Per-target segment sum of per-byte counts as an MXU matmul.
+    """Per-target segment sum of per-byte counts as a matmul.
 
     ``counts[b, t] = sum_{bs[t] <= w < be[t]} cw[b, w]``. The one-hot
     segment matrix is built in-kernel from the byte ranges and fuses
-    away; the contraction runs on the MXU. Replaces the prefix-sum
-    formulation: XLA lowers wide cumsums to reduce-window, which
-    measured 4.7 ms/batch at W8=256 (T=256 targets) vs ~0 for the
-    matmul.
+    away.
 
-    Exactness without the 6-pass ``Precision.HIGHEST`` dot (which
-    dominates wide-table batches — ~50 ms at T=8192): split ``cw`` into
-    base-256 digits, one DEFAULT single-pass bf16 dot per digit.
-    Digits <= 255 and the 0/1 segment matrix are exact in bf16, the MXU
-    accumulates bf16 products in f32 (exact for integer sums < 2^24,
-    guarded below), and the int32 recombination is exact because each
-    digit's scaled contribution is bounded by the true count.
-    ``max_val`` bounds cw (callers pass 8 * hash-axis length); the
-    compacted read path needs 2 digits, the long-read path 3 — still
-    2-3x fewer MXU passes than HIGHEST.
+    Exactness without a full-f32 dot: ``cw`` is split into base-256
+    digits with one bf16 dot per digit. Digits <= 255 and the 0/1
+    segment matrix are exact in bf16, the products accumulate in f32
+    (``preferred_element_type``; exact for integer sums < 2^24, guarded
+    below), and the int32 recombination is exact because each digit's
+    scaled contribution is bounded by the true count. ``max_val`` bounds
+    cw (callers pass 8 * hash-axis length): short reads need 2 digits,
+    reads with more than 8,192 compacted hashes 3.
     """
     W8 = cw.shape[1]
     w_idx = jnp.arange(W8, dtype=jnp.int32)[:, None]  # [W8, 1]
@@ -394,20 +302,6 @@ def _segment_matmul(cw, byte_starts, byte_ends, max_val: int = 65535 * 8):
     return out
 
 
-def bulk_target_counts_packed(tbl, rows, hash_mask, byte_starts, byte_ends):
-    """Dispatch on the query-table element type (u8 VMEM / u32 HBM regime).
-
-    ``tbl`` is either ``pack_table_u8``'s u8 table or its
-    :func:`table_as_u32` view; dtype is static under jit so the branch
-    costs nothing. Target byte ranges apply unchanged to both.
-    """
-    if tbl.dtype == jnp.uint32:
-        return bulk_target_counts_u32(tbl, rows, hash_mask, byte_starts,
-                                      byte_ends)
-    return bulk_target_counts_u8(tbl, rows, hash_mask, byte_starts,
-                                 byte_ends)
-
-
 @partial(jax.jit, static_argnames=("max_compact",))
 def compact_hashes(hashes, mask, *, max_compact: int):
     """Compact emitted hashes to the first ``max_compact`` slots per read.
@@ -418,11 +312,9 @@ def compact_hashes(hashes, mask, *, max_compact: int):
 
     Implemented as a stable partition via ``lax.sort`` (key = position,
     emitted positions keyed first) carrying the hash as two u32 payload
-    planes. The sort network is pure compare/select — no gather — so it
-    runs at VPU speed under *any* layout XLA picks for the minimizer
-    pipeline; a take_along_axis here de-vectorizes to a scalar-loop
-    gather (~15 ms/batch) when the producer chooses a batch-minor
-    layout, which it does in the fused classify program.
+    planes. The sort network is pure compare/select — no gather — so its
+    cost does not depend on the layout XLA picks for the minimizer
+    pipeline, as a take_along_axis gather's would.
 
     Returns ``(hashes [B, max_compact], mask [B, max_compact],
     overflow bool [B])``; ``overflow`` marks reads with more emissions
@@ -474,12 +366,11 @@ def bulk_target_counts(bits, rows, hash_mask, starts, ends, perm=None):
     Semantics identical to ``target_counts(bulk_count_bins(...))``
     (reference bulk_count + per-target technical-bin sum,
     GanonClassify.cpp:504-541) but with the target reduction as a prefix
-    sum over the bin axis instead of an MXU matmul — the per-target sum is
-    a segmented reduction over contiguous bins, which the VPU does at
-    memory speed while the tall-skinny one-hot matmul stalls the MXU.
+    sum over the bin axis instead of a one-hot matmul — the per-target sum
+    is a segmented reduction over contiguous bins.
 
     Args:
-      bits: uint32 ``[bin_size, n_words]`` (VMEM-cacheable when small).
+      bits: uint32 ``[bin_size, n_words]``.
       rows: int32 ``[B, M, S]`` row indices.
       hash_mask: bool ``[B, M]``.
       starts/ends: int32 ``[T]`` contiguous permuted-bin ranges per target.

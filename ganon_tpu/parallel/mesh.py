@@ -91,7 +91,7 @@ class ShardedClassifier:
         c1 = f.put_batch(codes)
         l1 = f.put_batch(np.asarray(lengths, dtype=np.int32))
         counts, n_hashes, ovf = dev.classify_counts_fused(
-            f.tbl8, f.byte_starts, f.byte_ends, c1, l1, None, None,
+            f.tbl, f.byte_starts, f.byte_ends, c1, l1, None, None,
             k=k, w=w, m1=m1, m2=0,
             bin_size=self.cfg.bin_size_bits,
             hash_functions=self.cfg.hash_functions,
@@ -100,8 +100,8 @@ class ShardedClassifier:
             hashes, mask, nh = dev.extract_hashes(
                 c1, l1, None, None, k=k, w=w, m1=m1, m2=0
             )
-            counts = dev.filter_counts_u8(
-                f.tbl8, f.byte_starts, f.byte_ends, hashes, mask, nh,
+            counts = dev.filter_counts(
+                f.tbl, f.byte_starts, f.byte_ends, hashes, mask, nh,
                 bin_size=self.cfg.bin_size_bits,
                 hash_functions=self.cfg.hash_functions,
             )

@@ -15,7 +15,7 @@ cross-device traffic on the fine path. Semantics are exactly the
 single-device ``DevicePrunedForest.counts_gated`` (bit-identical,
 asserted in tests/test_pruned.py and __graft_entry__.dryrun_multichip).
 
-This is the TPU re-expression of how the reference HIBF spreads one
+This is the device-mesh re-expression of how the reference HIBF spreads one
 logical index over many technical sub-IBFs
 (hierarchical_interleaved_bloom_filter.hpp:432-460) — here the split is
 a device sharding of one flat grouped table, not nested containers.

@@ -21,9 +21,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ganon_tpu.index.device_build import enable_compile_cache
 
-enable_compile_cache()
 from wide_layout_probe import trace_ms
 
 B = 8192

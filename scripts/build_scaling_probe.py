@@ -3,9 +3,8 @@
 Times DeviceBuildPipeline's two passes (group-parallel counting; mesh
 scatter) with 1 vs N virtual devices at a few input sizes. CPU-backend
 timings validate that the distribution machinery adds no serial
-regression and produce the perf_notes record; absolute speedups are
-only meaningful on real multi-chip hardware (the virtual devices share
-host cores).
+regression; absolute speedups are only meaningful on real multi-device
+hardware (the virtual devices share host cores).
 
 Usage: JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
        python scripts/build_scaling_probe.py [--mbp 4 8] [--targets 8]

@@ -22,7 +22,8 @@ builds a db from the reference's bundled real assemblies with the
 reference `ganon-build`, then times reference `ganon-classify`
 (default 24 threads) on the same x256-replicated sim reads that
 `bench.py` measures as `extra.e2e_refdata` — making the
-TPU-vs-24-thread-CPU comparison one command the day binaries exist.
+accelerator-vs-24-thread-CPU comparison one command the day binaries
+exist.
 """
 
 import os
@@ -121,17 +122,17 @@ def main(workdir="/tmp/diff_reference"):
     # direction 2: our build (reference format) -> both classifiers
     from ganon_tpu.index.builder import BuildConfig, run_build
 
-    our_db = os.path.join(workdir, "tpu_built.ibf")
+    our_db = os.path.join(workdir, "ours_built.ibf")
     run_build(BuildConfig(
         input_file=ti, output_file=our_db, kmer_size=K, window_size=W,
         max_fp=0.05, filter_format="reference",
     ))
     ours2 = _sorted_lines(
-        _our_classify(our_db, fq, os.path.join(workdir, "ours_on_tpu")))
+        _our_classify(our_db, fq, os.path.join(workdir, "ours_on_ours")))
     refs2 = _sorted_lines(
-        _ref_classify(our_db, fq, os.path.join(workdir, "ref_on_tpu")))
+        _ref_classify(our_db, fq, os.path.join(workdir, "ref_on_ours")))
     if ours2 != refs2:
-        failures.append(("tpu-built db", ours2, refs2))
+        failures.append(("our-built db", ours2, refs2))
 
     if failures:
         for label, a, b in failures:

@@ -17,9 +17,6 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from ganon_tpu.index.device_build import enable_compile_cache
-
-enable_compile_cache()
 
 import bench
 from bench import _e2e_kw, _reads_fastq, build_pruned_database

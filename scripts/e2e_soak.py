@@ -3,9 +3,8 @@
 Drives the FULL engine (fastq parse -> pruned kernel -> thresholds ->
 LCA -> .one/.all/.unc/.rep) over 1,048,576 paired 150 bp reads in one
 process, fetch-fenced, and prints the per-term wall split (input_wait /
-dispatch / fetch / finish). The first pass in a fresh process pays the
-per-process first-execution stall (docs/perf_notes.md); the WARM pass
-is the sustained number.
+dispatch / fetch / finish). The first pass in a fresh process pays
+start-up and compilation; the WARM pass is the sustained number.
 
 Usage: python scripts/e2e_soak.py [n_reads]
 """
@@ -16,9 +15,6 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from ganon_tpu.index.device_build import enable_compile_cache
-
-enable_compile_cache()
 
 import bench
 from bench import CACHE_DIR, _e2e_kw, _reads_fastq, build_pruned_database

@@ -20,9 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ganon_tpu.classify.device import classify_batch_packed, pack_batch_input
-from ganon_tpu.index.device_build import enable_compile_cache
 
-enable_compile_cache()
 from wide_table_bench import trace_jit_total
 
 K, W = 19, 31
@@ -30,21 +28,13 @@ N_TRACE = 3
 
 
 def run_config(T, R, B, L, h):
-    from ganon_tpu.index.sizing import VMEM_STAGED_TABLE_BYTES
-
-    if R * T > VMEM_STAGED_TABLE_BYTES:
-        assert T % 4 == 0
-        tbl = jax.jit(
-            lambda k: jax.random.bits(k, (R, T // 4), dtype=jnp.uint32)
-            & jnp.uint32(0x5B5B5B5B),
-        )(jax.random.key(T))
-        layout = "u32"
-    else:
-        tbl = jax.jit(
-            lambda k: jax.random.bits(k, (R, T), dtype=jnp.uint8)
-            & jnp.uint8(0x5B),
-        )(jax.random.key(T))
-        layout = "u8 "
+    # the DeviceFilter layout: u32 word view of a T-byte row
+    assert T % 4 == 0
+    tbl = jax.jit(
+        lambda k: jax.random.bits(k, (R, T // 4), dtype=jnp.uint32)
+        & jnp.uint32(0x5B5B5B5B),
+    )(jax.random.key(T))
+    layout = "u32"
     tbl.block_until_ready()
     byte_starts = jnp.arange(T, dtype=jnp.int32)
     byte_ends = byte_starts + 1
@@ -85,9 +75,9 @@ def main():
     print(f"device: {jax.devices()[0]}")
     for T, R, B, L, h in [
         (32, 870575, 8192, 150, 4),      # short single-end baseline
-        (32, 870575, 512, 10000, 4),     # long reads, VMEM table
-        (1024, 870575, 512, 10000, 4),   # long reads, HBM table
-        (1024, 2723899, 512, 10000, 1),  # long reads, HBM h=1
+        (32, 870575, 512, 10000, 4),     # long reads, 27 MB table
+        (1024, 870575, 512, 10000, 4),   # long reads, 891 MB table
+        (1024, 2723899, 512, 10000, 1),  # long reads, h=1
     ]:
         run_config(T, R, B, L, h)
 

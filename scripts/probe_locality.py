@@ -1,11 +1,10 @@
 """Probe-locality experiment: sorted vs unsorted wide-table gathers.
 
-Round-4 verdict lead: sort each batch's row indices so the HBM gather
-walks the table quasi-sequentially instead of randomly, inside the REAL
-packed program (classify_batch_packed sort_probes=True; the count sums
-over the hash axis, so the permutation needs no undo and exactness is
-free — asserted here). Measured on db_T1024 (the flat HBM/u32 regime;
-T8192 moved to the pruned layout where probes are narrow).
+Sorts each batch's row indices so the device-memory gather walks the
+table quasi-sequentially instead of randomly, inside the REAL packed
+program (classify_batch_packed sort_probes=True; the count sums over the
+hash axis, so the permutation needs no undo and exactness is free —
+asserted here). Runs on db_T1024, the wide flat-table regime.
 """
 
 import os
@@ -16,9 +15,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import numpy as np
 
-from ganon_tpu.index.device_build import enable_compile_cache
 
-enable_compile_cache()
 import jax
 import jax.numpy as jnp
 
@@ -26,7 +23,7 @@ import bench
 from bench import BATCH, K, READ_LEN, W, _genomes, build_database, \
     sample_paired_reads
 from ganon_tpu.classify import device as dev
-from ganon_tpu.ops.ibf_query import commit_device_table, pack_table_u8
+from ganon_tpu.ops.ibf_query import pack_table_u8, table_as_u32
 
 
 def main(name="T1024"):
@@ -34,7 +31,7 @@ def main(name="T1024"):
     cfg = ibf.ibf_config
     T = len(ibf.targets())
     tbl8np, bs, be = pack_table_u8(ibf.bits, ibf.bin_to_target_ids(), T)
-    tbl8 = commit_device_table(tbl8np)
+    tbl8 = jax.device_put(table_as_u32(tbl8np))
     bs, be = jnp.asarray(bs), jnp.asarray(be)
     print(f"T={T} table={tbl8np.nbytes/1e6:.0f}MB dtype={tbl8.dtype} "
           f"h={cfg.hash_functions}")

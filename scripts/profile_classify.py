@@ -18,10 +18,11 @@ import numpy as np
 from ganon_tpu.index.ibf import IBF
 from ganon_tpu.ops.minimizers import minimizers_masked_jax
 from ganon_tpu.ops.ibf_query import (
-    bulk_target_counts_u8,
+    bulk_target_counts_packed,
     compact_hashes,
     ibf_row_indices,
     pack_table_u8,
+    table_as_u32,
 )
 from ganon_tpu.classify.device import (
     classify_counts_fused,
@@ -51,8 +52,7 @@ def main():
     cfg = ibf.ibf_config
     T = len(ibf.targets())
     tbl8, bs, be = pack_table_u8(ibf.bits, ibf.bin_to_target_ids(), T)
-    tbl8, bs, be = jnp.asarray(tbl8), jnp.asarray(bs), jnp.asarray(be)
-    print(f"table [{tbl8.shape[0]} x {tbl8.shape[1]}] u8, "
+    print(f"table [{tbl8.shape[0]} x {tbl8.shape[1]}] bytes, "
           f"S={cfg.hash_functions}, T={T}")
 
     rng = np.random.default_rng(0)
@@ -77,7 +77,9 @@ def main():
     )
     rows = timeit("ibf_row_indices", rowf, hc)
 
-    cntf = jax.jit(lambda r, m: bulk_target_counts_u8(tbl8, r, m, bs, be))
+    tbl = jnp.asarray(table_as_u32(tbl8))
+    bs, be = jnp.asarray(bs), jnp.asarray(be)
+    cntf = jax.jit(lambda r, m: bulk_target_counts_packed(tbl, r, m, bs, be))
     counts = timeit("gather+AND+popcount+segsum", cntf, rows, mcm)
 
     thr = jax.jit(
@@ -90,7 +92,7 @@ def main():
 
     fused = jax.jit(
         lambda c1, l1, c2, l2: classify_counts_fused(
-            tbl8, bs, be, c1, l1, c2, l2,
+            tbl, bs, be, c1, l1, c2, l2,
             k=K, w=W, m1=m1, m2=m1,
             bin_size=cfg.bin_size_bits, hash_functions=cfg.hash_functions,
         )

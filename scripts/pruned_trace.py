@@ -1,7 +1,7 @@
 """Device-op trace of classify_batch_packed_pruned (see trace_batch.py)."""
 
-import glob
 import os
+import shutil
 import sys
 import time
 
@@ -12,9 +12,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ganon_tpu.index.device_build import enable_compile_cache
-
-enable_compile_cache()
 
 import bench
 from bench import CACHE_DIR, K, W, READ_LEN, _genomes, sample_paired_reads
@@ -59,19 +56,18 @@ def main(name="T8192", S=2, gs=64):
     np.asarray(run(*make_batch(0)))
     print(f"warm: {time.time() - t0:.1f}s")
 
-    tracedir = "/tmp/jaxtrace_pruned"
-    os.system(f"rm -rf {tracedir}")
+    tracedir = os.path.join("chiprun_out", "pruned_trace")
+    shutil.rmtree(tracedir, ignore_errors=True)
     bufs = [make_batch(i + 1) for i in range(N_TRACE)]
     with jax.profiler.trace(tracedir):
         outs = [run(*b) for b in bufs]
         for o in outs:
             np.asarray(o)
 
-    from xplane_parse import op_durations
+    from xplane_parse import latest_xplane, op_durations
 
-    fpath = sorted(glob.glob(f"{tracedir}/plugins/profile/*/*.xplane.pb"))[-1]
-    durs = op_durations(fpath)
-    print("== device plane ==")
+    durs = op_durations(latest_xplane(tracedir))
+    print("== device ops ==")
     total = 0.0
     for opname, d in sorted(durs.items(), key=lambda kv: -kv[1])[:30]:
         total += d

@@ -98,11 +98,10 @@ def test_topk_overflow_fallback(tmp_path):
     assert len(allm) == 12  # all 12 identical targets reported
 
 
-def test_u32_layout_switch_equals_u8(tmp_path, monkeypatch):
-    """Forcing DeviceFilter's HBM-regime u32 word-view layout (normally
-    auto-selected above sizing.VMEM_STAGED_TABLE_BYTES) must reproduce
-    the u8-layout outputs end to end, including through the packed
-    single-dispatch fast path."""
+def test_u32_table_fast_path_equals_slow_path(tmp_path):
+    """DeviceFilter holds its table as the u32 word view, and the packed
+    single-dispatch fast path on it reproduces the host slow path's
+    outputs end to end."""
     import ganon_tpu.classify.device as devmod
 
     rng = random.Random(23)
@@ -122,15 +121,10 @@ def test_u32_layout_switch_equals_u8(tmp_path, monkeypatch):
     import jax.numpy as jnp
     from ganon_tpu.index.ibf import IBF
 
+    assert devmod.DeviceFilter(IBF.load(db)).tbl.dtype == jnp.uint32
     outputs = {}
-    for force_u32 in (False, True):
-        if force_u32:
-            monkeypatch.setattr(devmod, "_U32_TABLE_BYTES", 0)
-        else:
-            monkeypatch.undo()
-        expect = jnp.uint32 if force_u32 else jnp.uint8
-        assert devmod.DeviceFilter(IBF.load(db)).tbl8.dtype == expect
-        out = str(tmp_path / f"u32{force_u32}")
+    for fast in (False, True):
+        out = str(tmp_path / f"fast{fast}")
         cfg = ClassifyConfig(
             ibf=[db],
             single_reads=[str(fq)],
@@ -139,9 +133,10 @@ def test_u32_layout_switch_equals_u8(tmp_path, monkeypatch):
             rel_filter=[0.2],
             output_all=True,
             output_unclassified=True,
+            device_thresholding=fast,
         )
         run_classify(cfg)
-        outputs[force_u32] = out
+        outputs[fast] = out
 
     for ext in (".one", ".unc", ".rep", ".all"):
         a = sorted(map(tuple, read_tsv(outputs[False] + ext)))
@@ -398,39 +393,6 @@ def test_multi_filter_ragged_cap_escalation(tmp_path):
     a = sorted(map(tuple, read_tsv(outputs[True] + ".all")))
     b = sorted(map(tuple, read_tsv(outputs[False] + ".all")))
     assert len(a) == 400 and a == b
-
-
-def test_commit_device_table_row_major():
-    # jax Layout is MAJOR-to-minor: row-major for [rows, width] must be
-    # Layout((0, 1)) (width minor). Committing the wrong order made jit
-    # adopt a column-major entry layout and re-pay an in-program
-    # relayout copy every batch (round-3 trace; see
-    # ops.ibf_query.commit_device_table)
-    import numpy as np
-    import jax.numpy as jnp
-    from ganon_tpu.classify import device as dev
-    from ganon_tpu.ops.ibf_query import commit_device_table
-
-    rng = np.random.default_rng(0)
-    tbl8 = rng.integers(0, 256, size=(2048, 64), dtype=np.uint8)
-    committed = commit_device_table(tbl8, u32_threshold_bytes=1 << 40)
-    try:
-        mtm = committed.format.layout.major_to_minor
-    except AttributeError:
-        return  # no layout API on this backend
-    assert mtm == (0, 1), mtm
-    # and the committed table computes the same counts as uncommitted
-    bs = jnp.asarray(np.arange(16, dtype=np.int32) * 4)
-    be = bs + 4
-    codes = jnp.asarray(rng.integers(0, 4, size=(16, 150), dtype=np.uint8))
-    lens = jnp.asarray(np.full((16,), 150, np.int32))
-    kw = dict(k=19, w=31, m1=120, m2=0, bin_size=1024, hash_functions=1)
-    c1, n1, _ = dev.classify_counts_fused(
-        committed, bs, be, codes, lens, None, None, **kw)
-    c2, n2, _ = dev.classify_counts_fused(
-        jnp.asarray(tbl8), bs, be, codes, lens, None, None, **kw)
-    assert np.array_equal(np.asarray(c1), np.asarray(c2))
-    assert np.array_equal(np.asarray(n1), np.asarray(n2))
 
 
 def test_threshold_topk_argmax_tier_matches_oracle():

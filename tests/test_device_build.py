@@ -277,3 +277,63 @@ def test_count_pass_multidevice_identical_to_single(monkeypatch):
     h8, b8 = run(list(jax.devices()))
     assert h1 == h8
     assert np.array_equal(b1, b8)
+
+
+# -- sorts far longer than one 2^18-entry column ----------------------------
+# The build's dedup sorts are plain rank-1 lax.sort calls; these cases push
+# each sort past 2^18 entries (the column length of the columnsort they
+# replaced) and compare with an independent path.
+
+
+@pytest.mark.parametrize("n_targets,files_per_target,seq_len", [
+    (1, 1, 600_000),  # one file of three 2^18 bp pieces
+    (3, 1, 250_000),
+    (1, 3, 200_000),  # the same target's files counted twice
+])
+def test_device_pipeline_equals_host_past_old_sort_boundary(
+        n_targets, files_per_target, seq_len):
+    rng = np.random.default_rng(seq_len + n_targets)
+    seq_files = _mkinput(rng, n_targets=n_targets,
+                         files_per_target=files_per_target, seqs_per_file=1,
+                         seq_len=seq_len)
+    ibf = _host_path(seq_files, max_fp=0.05)
+    bits, hashes_count, _ = _device_path(seq_files, max_fp=0.05)
+    assert hashes_count == ibf.hashes_count
+    assert np.array_equal(bits, ibf.bits)
+
+
+@pytest.mark.parametrize("layout,fine_h", [("ibf", 4), ("pruned", 1),
+                                           ("pruned", 2)])
+def test_sort_scatter_equals_numpy_past_old_sort_boundary(layout, fine_h):
+    """The jitted sort + dedup + scatter-OR equals a numpy scatter of the
+    same inserts, with more than 2^18 inserts in one sort."""
+    from ganon_tpu.index.ibf import _scatter_bits
+    from ganon_tpu.index.pruned import build_pruned
+    from ganon_tpu.ops.ibf_query import ibf_row_indices_np
+
+    rng = np.random.default_rng(fine_h)
+    th = {
+        f"T{i:02d}": np.unique(rng.integers(0, 2**63, 8_000 if
+                                            layout == "pruned" else 80_000,
+                                            dtype=np.uint64))
+        for i in range(40 if layout == "pruned" else 2)
+    }
+    if layout == "pruned":
+        dev = build_pruned(th, kmer_size=K, window_size=W, max_fp=0.05,
+                           fine_h=fine_h, group_size=16, device=True)
+        host = build_pruned(th, kmer_size=K, window_size=W, max_fp=0.05,
+                            fine_h=fine_h, group_size=16, device=False)
+        assert np.array_equal(dev.fine, host.fine)
+        assert np.array_equal(np.ascontiguousarray(dev.coarse), host.coarse)
+        return
+    ibf = build_ibf(th, kmer_size=K, window_size=W, max_fp=0.05,
+                    hash_functions=fine_h)
+    cfg = ibf.ibf_config
+    ref = np.zeros_like(ibf.bits)
+    for binno, t, st, en in sizing.split_target_bins(cfg, ibf.hashes_count):
+        h = th[t][st:en + 1]
+        rows = ibf_row_indices_np(h, bin_size=cfg.bin_size_bits,
+                                  hash_functions=cfg.hash_functions)
+        for s in range(rows.shape[1]):
+            _scatter_bits(ref, rows[:, s], np.full(len(h), binno))
+    assert np.array_equal(ibf.bits, ref)

@@ -280,7 +280,7 @@ def test_build_mode_orderings_full_build(tmp_path):
         out = str(tmp_path / f"{mode}.ibf")
         run_build(BuildConfig(
             input_file=str(info), output_file=out, kmer_size=K,
-            window_size=W, max_fp=0.05, mode=mode, tpu_sizing=False,
+            window_size=W, max_fp=0.05, mode=mode,
         ))
         ibf = IBF.load(out)
         results[mode] = (

@@ -138,13 +138,13 @@ def test_bulk_target_counts_equals_matmul_path():
         assert shuffle or perm is None  # contiguous maps skip the permute
 
 
-def test_u8_layout_counts_equal_reference_formulation():
-    """The byte-aligned u8 device layout (pack_table_u8 +
-    bulk_target_counts_u8) produces the same per-target counts as the
+def test_packed_layout_counts_equal_reference_formulation():
+    """The byte-aligned device layout (pack_table_u8 viewed as u32 words,
+    bulk_target_counts_packed) produces the same per-target counts as the
     interleaved u32 formulation, for contiguous and shuffled bin maps."""
     import jax.numpy as jnp
     from ganon_tpu.ops.ibf_query import (
-        bulk_target_counts_u8, pack_table_u8)
+        bulk_target_counts_packed, pack_table_u8, table_as_u32)
 
     rng = np.random.default_rng(12)
     R, W, B, M, S, T = 2048, 3, 8, 40, 4, 11
@@ -163,23 +163,20 @@ def test_u8_layout_counts_equal_reference_formulation():
         )
         tbl8, bs, be = pack_table_u8(bits, b2t, T)
         got = np.asarray(
-            bulk_target_counts_u8(
-                jnp.asarray(tbl8), rows, mask, jnp.asarray(bs),
-                jnp.asarray(be),
+            bulk_target_counts_packed(
+                jnp.asarray(table_as_u32(tbl8)), rows, mask,
+                jnp.asarray(bs), jnp.asarray(be),
             )
         )
         assert (got == ref).all()
 
 
-def test_u32_word_view_counts_equal_u8():
-    """The HBM-regime u32 word view (table_as_u32 +
-    bulk_target_counts_u32) matches the u8 path bit-exactly, including
-    when W8 is not a multiple of 4 (zero-padded view) and through the
-    dtype dispatcher."""
+def test_packed_layout_pads_odd_byte_widths():
+    """A byte width that is not a multiple of 4 zero-pads the u32 word
+    view (table_as_u32) and still counts exactly."""
     import jax.numpy as jnp
     from ganon_tpu.ops.ibf_query import (
-        bulk_target_counts_packed, bulk_target_counts_u8,
-        bulk_target_counts_u32, pack_table_u8, table_as_u32)
+        bulk_target_counts_packed, pack_table_u8, table_as_u32)
 
     rng = np.random.default_rng(21)
     R, W, B, M, S, T = 1024, 3, 8, 40, 3, 13  # W8 = 13 -> pads to 16
@@ -189,15 +186,14 @@ def test_u32_word_view_counts_equal_u8():
     b2t = np.sort(rng.integers(0, T + 1, W * 32)).astype(np.int32)
     tbl8, bs, be = pack_table_u8(bits, b2t, T)
     assert tbl8.shape[1] % 4 != 0  # exercises the pad branch
-    bs, be = jnp.asarray(bs), jnp.asarray(be)
-    ref = np.asarray(
-        bulk_target_counts_u8(jnp.asarray(tbl8), rows, mask, bs, be))
-    tbl32 = jnp.asarray(table_as_u32(tbl8))
-    got = np.asarray(bulk_target_counts_u32(tbl32, rows, mask, bs, be))
+    tbl32 = table_as_u32(tbl8)
+    assert tbl32.shape == (R, -(-tbl8.shape[1] // 4))
+    ref = np.asarray(target_counts(
+        bulk_count_bins(jnp.asarray(bits), rows, mask), jnp.asarray(b2t),
+        num_targets=T))
+    got = np.asarray(bulk_target_counts_packed(
+        jnp.asarray(tbl32), rows, mask, jnp.asarray(bs), jnp.asarray(be)))
     assert (got == ref).all()
-    via_dispatch = np.asarray(
-        bulk_target_counts_packed(tbl32, rows, mask, bs, be))
-    assert (via_dispatch == ref).all()
 
 
 def test_compact_hashes_rank_select():
@@ -274,7 +270,7 @@ def test_end_to_end_sequence_membership():
 
 
 def test_build_roundtrip_single_hash_function():
-    """h=1 filters (the TPU tuner's HBM-regime choice) stay exact."""
+    """h=1 filters (an explicit --hash-functions 1) stay exact."""
     rng = np.random.default_rng(9)
     th = _random_target_hashes(rng, 6)
     ibf = build_ibf(

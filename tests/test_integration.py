@@ -295,7 +295,7 @@ def test_report_and_table_cli(mini_data, tmp_path):
 def test_cli_flag_parity_with_reference():
     """Every reference CLI flag exists here (mechanically extracted
     from the reference's argparse calls); our extras are the known
-    TPU-framework additions only."""
+    framework additions only."""
     import ast
     import os
 
@@ -329,9 +329,9 @@ def test_cli_flag_parity_with_reference():
     )
     assert ref - ours == set(), f"reference flags missing: {ref - ours}"
     assert ours - ref == {
-        # documented TPU-framework extensions
+        # documented framework extensions
         "--distributed", "--filter-format", "--hibf-layout",
         "--longreads", "--no-length-bucketing", "--pipeline-depth",
         "--reassign-max-iter", "--reassign-threshold",
-        "--tax-root-node", "--top-k-matches", "--tpu-sizing",
+        "--tax-root-node", "--top-k-matches",
     }, f"undocumented extra flags: {ours - ref}"

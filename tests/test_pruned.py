@@ -1,6 +1,6 @@
 """Merged-bin pruned forest: build, gating semantics, engine identity.
 
-The pruned forest is the TPU re-expression of the reference HIBF's
+The pruned forest is a batched re-expression of the reference HIBF's
 threshold-gated descent (hierarchical_interleaved_bloom_filter.hpp:
 432-460): a coarse merged-bin IBF prunes target groups before the fine
 gather. Its defined semantics are GATED (prune-only: a group below the
@@ -137,7 +137,8 @@ def _run(db, reads, out, **over):
 
 def test_fast_path_equals_gated_slow_path(small_db, tmp_path):
     """classify_batch_packed_pruned == probe-all counts_gated through
-    the full engine, byte for byte (the VERDICT's exactness contract)."""
+    the full engine, byte for byte (the pruned layout's exactness
+    contract)."""
     genomes, th, pf = small_db
     db = str(tmp_path / "db.hibf")
     pf.save(db)
@@ -310,7 +311,7 @@ def test_true_reads_classified_to_source_target(small_db, tmp_path):
 
 
 def test_device_build_identical_to_host(small_db):
-    """The jitted columnsort-scatter build (chunked, dedup + OR on
+    """The jitted sort-scatter build (chunked, dedup + OR on
     device) produces bit-identical fine/coarse tables to the host numpy
     scatter — same insert set, idempotent OR."""
     genomes, th, pf_host = small_db

@@ -169,7 +169,7 @@ def test_engine_fast_path_matches_full_on_raptor(hierarchy, tmp_path):
 
 def test_forest_export_classify_parity(tmp_path):
     """build -> export_raptor_hibf -> classify equals classifying the
-    npz forest directly (VERDICT: build pipeline raptor export wiring;
+    npz forest directly (build pipeline raptor export wiring;
     reference consumer GanonClassify.cpp:875-938)."""
     import random
 

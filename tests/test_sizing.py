@@ -1,6 +1,7 @@
 """Sizing math invariants (mirroring GanonBuild.test.cpp perf invariants)."""
 
 import numpy as np
+import pytest
 
 from ganon_tpu.index.config import IBFConfig
 from ganon_tpu.index import sizing
@@ -96,63 +97,27 @@ def test_fixed_hash_functions():
     assert cfg.hash_functions == 2
 
 
-# -- TPU throughput-aware hash tuning ---------------------------------------
+# -- the build sizes exactly as the reference does -------------------------
 
 
-def _tune(counts, max_fp=0.05, filter_size=0.0, hash_functions=0, mode="avg"):
-    cfg = IBFConfig(kmer_size=19, window_size=31)
-    sizing.optimal_hashes(
-        max_fp if not filter_size else 0.0, filter_size, cfg, counts,
-        hash_functions=hash_functions, mode=mode,
-    )
-    before = (cfg.hash_functions, cfg.bin_size_bits, cfg.n_bins,
-              cfg.max_hashes_bin)
-    changed = sizing.auto_tune_hash_functions(
-        max_fp if not filter_size else 0.0, filter_size, cfg, counts,
-        hash_functions=hash_functions, mode=mode,
-    )
-    return cfg, before, changed
-
-
-def test_tpu_tuning_lowers_h_for_small_tables_too():
-    # VMEM regime: per-probe cost is flat, so the fp-equivalent h=1
-    # re-size (3.1x the bits, 1/4 the probes) wins as long as the table
-    # stays in a cheap gather band (measured 1.43x, vmem_h_probe.py)
-    counts = {f"T{i}": 5_000 for i in range(16)}
-    cfg, before, changed = _tune(counts)
-    assert changed
-    assert cfg.hash_functions == 1
-    tmax, _ = sizing.true_false_positive(
-        counts, cfg.max_hashes_bin, cfg.bin_size_bits, cfg.hash_functions
-    )
-    assert tmax <= 0.05 * 1.01
-
-
-def test_tpu_tuning_lowers_h_for_hbm_tables():
-    counts = {f"T{i}": 140_000 for i in range(1024)}
-    cfg, before, changed = _tune(counts)
-    assert changed
-    assert cfg.hash_functions < before[0]
-    # fp bound still honored by the re-size
-    tmax, tavg = sizing.true_false_positive(
-        counts, cfg.max_hashes_bin, cfg.bin_size_bits, cfg.hash_functions
-    )
-    assert tmax <= 0.05 * 1.01
-    # memory growth bounded
-    table = cfg.bin_size_bits * sizing.optimal_bins(cfg.n_bins) // 8
-    assert table <= sizing.MAX_TUNED_TABLE_BYTES
-    # and the model says it is faster
-    def cost(h, bs, mhb):
-        rb = sizing.packed_row_bytes(mhb, counts)
-        return h * sizing.probe_cost_ns(bs * rb, rb)
-    assert cost(cfg.hash_functions, cfg.bin_size_bits, cfg.max_hashes_bin) < cost(
-        before[0], before[1], before[3]
-    )
-
-
-def test_tpu_tuning_respects_explicit_h_and_filter_size():
-    counts = {f"T{i}": 140_000 for i in range(1024)}
-    cfg, before, changed = _tune(counts, hash_functions=4)
-    assert not changed and cfg.hash_functions == 4
-    cfg, before, changed = _tune(counts, filter_size=512.0)
-    assert not changed
+@pytest.mark.parametrize(
+    "counts,hash_functions",
+    [
+        ({f"T{i}": 5_000 for i in range(16)}, 0),
+        ({f"T{i}": 140_000 for i in range(1024)}, 0),
+        ({f"T{i}": 140_000 for i in range(1024)}, 4),
+        ({f"T{i}": 500 + 900 * i for i in range(40)}, 4),
+    ],
+)
+def test_size_filter_is_reference_memory_optimal(counts, hash_functions):
+    """Every build path's sizing is the reference's memory-optimal search
+    (GanonBuild.cpp:428-616) and nothing else: no re-size trades the
+    filter's size for fewer hash functions."""
+    ref = IBFConfig(kmer_size=19, window_size=31)
+    sizing.optimal_hashes(0.05, 0.0, ref, counts,
+                          hash_functions=hash_functions)
+    got = sizing.size_filter(counts, kmer_size=19, window_size=31,
+                             max_fp=0.05, hash_functions=hash_functions)
+    for field in ("hash_functions", "bin_size_bits", "n_bins",
+                  "max_hashes_bin", "max_fp"):
+        assert getattr(got, field) == getattr(ref, field), field
